@@ -23,7 +23,7 @@ from scipy.spatial import cKDTree
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pcr_tpu.utils import pcd, poses_io  # noqa: E402
+from pcreg.utils import pcd, poses_io  # noqa: E402
 
 EPS = 1e-3
 
@@ -226,7 +226,7 @@ def stage1_features(pts, voxel=0.1):
 
 def bench_stage1(clouds, n_pairs):
     """Per-scan features shared by the two pairs each scan serves — the same
-    economy as the TPU pipeline, so the ratio compares like for like."""
+    economy as the JAX pipeline, so the ratio compares like for like."""
     t0 = time.time()
     feats = {}
     for i in range(n_pairs):

@@ -4,7 +4,7 @@ Reads this repo's own end-to-end outputs (outputs/<stage>/NCLT) and the
 reference fixtures, and writes outputs/NCLT_summary.json with:
   * stage-1/2 per-pair agreement vs the shipped fixture poses,
   * circuit closure errors (reference chain convention) per stage vs the
-    fixtures' own closure (BASELINE.md: FGR 104.39 m -> M-GICP 40.82 m),
+    fixtures' own closure (SURVEY.md: FGR 104.39 m -> M-GICP 40.82 m),
   * stage-3 trajectories for all four methods, per-method edge-consistency
     (did refinement BEAT the raw chain) and — with --sweep — the reference's
     per-pair fitness/RMSE sweep under each refined trajectory
@@ -24,7 +24,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pcr_tpu.utils import poses_io, se3  # noqa: E402
+from pcreg.utils import poses_io, se3  # noqa: E402
 
 
 def closure(rel):
@@ -69,14 +69,14 @@ def main(root="outputs", sweep=False):
     # edge consistency — did the refinement BEAT the raw chain? — plus the
     # optional cloud-backed fitness/RMSE sweep (the reference's quantitative
     # ranking, 3_...py:368-400 / ALL_FUNCTIONS.py:801-824).
-    from pcr_tpu.models import evaluate as eval_mod
+    from pcreg.models import evaluate as eval_mod
 
     methods = {}
     chained = np.asarray(se3.relative_to_absolute(s2))
     clouds = None
     if sweep:
-        from pcr_tpu import pipeline
-        from pcr_tpu.utils import cloud as cloud_mod
+        from pcreg import pipeline
+        from pcreg.utils import cloud as cloud_mod
 
         clouds = cloud_mod.load_dataset_lazy("NCLT", indices=range(n))
         fit, rmse = pipeline.evaluate_circuit(clouds, s2, max_dist=0.2)
@@ -94,7 +94,7 @@ def main(root="outputs", sweep=False):
             chained_std, s2, convention="standard").items()
         if isinstance(v, float)}
     # ATE target: the composed FGR_GICP *fixture* chain — the agreed
-    # groundtruth stand-in (BASELINE.md; the 3_...py:368-372 analogue).  The
+    # groundtruth stand-in (SURVEY.md; the 3_...py:368-372 analogue).  The
     # reference scores all four methods against ONE trajectory; our methods
     # live in two composition conventions whose chains diverge ~55 m on NCLT,
     # so a single-ruler ranking (VERDICT r4 item 1) needs BOTH raw targets
@@ -139,7 +139,7 @@ def main(root="outputs", sweep=False):
             "beats_raw_chain_dt_max": bool(cons["dt_max_m"] < raw_cons["dt_max_m"]),
         }
         if sweep and clouds is not None:
-            from pcr_tpu import pipeline
+            from pcreg import pipeline
 
             rel_m = np.asarray(se3.absolute_to_relative_circuit(poses))
             fit, rmse = pipeline.evaluate_circuit(clouds, rel_m, max_dist=0.2)

@@ -1,4 +1,4 @@
-"""CLI runner (python -m pcr_tpu) — the L3 entry-point surface."""
+"""CLI runner (python -m pcreg) — the L3 entry-point surface."""
 
 import json
 import os
@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from pcr_tpu import __main__ as cli
-from pcr_tpu.utils import pcd as pcd_io
-from pcr_tpu.utils import poses_io, se3
+from pcreg import __main__ as cli
+from pcreg.utils import pcd as pcd_io
+from pcreg.utils import poses_io, se3
 
 
 @pytest.fixture
@@ -16,7 +16,7 @@ def mini_dataset(tmp_path, monkeypatch, rng):
     """A synthetic 4-scan 'Facade' circuit written as real PCD files under a
     temporary reference root — exercises the FULL CLI surface (load -> FGR ->
     M-GICP -> global refinement) at CI-affordable size."""
-    from pcr_tpu.utils import cloud as cloud_mod
+    from pcreg.utils import cloud as cloud_mod
     from tests.test_pipeline import _bumpy_clouds
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=4, n=1500, cap=2048)
@@ -90,9 +90,27 @@ def test_cli_pair(mini_dataset, tmp_path, capsys):
         os.path.join(out, "relative_poses_FGR_GICP", "Facade", "pose_2_0.txt"))
 
 
+def _relative_circuit(tmp_path, n=7, seed=0):
+    """A closed n-pose circuit of relative poses written in the reference
+    layout (pose_{i+1}_{i}.txt ... pose_0_{n-1}.txt), with a small closure
+    residual for stage 3 to distribute."""
+    rng = np.random.default_rng(seed)
+    rel = []
+    for _ in range(n):
+        ang = rng.normal(scale=0.05)
+        c, s = np.cos(ang), np.sin(ang)
+        T = np.eye(4)
+        T[:2, :2] = [[c, -s], [s, c]]
+        T[:3, 3] = rng.normal(scale=[1.0, 1.0, 0.05])
+        rel.append(T)
+    d = os.path.join(tmp_path, "relative_in")
+    poses_io.save_relative_circuit(d, np.stack(rel))
+    return d
+
+
 def test_stage3_closed_form_from_reference_fixtures(tmp_path, capsys):
     rc = cli.main([
-        "stage3", "--dataset", "Facade", "--relative", "reference",
+        "stage3", "--dataset", "Facade", "--relative", _relative_circuit(tmp_path),
         "--methods", "LUM", "SLERP", "SLERP_LUM",
         "--output-root", str(tmp_path),
     ])
@@ -108,8 +126,9 @@ def test_stage3_closed_form_from_reference_fixtures(tmp_path, capsys):
 
 def test_report_exports_artifacts(tmp_path, capsys):
     # stage-3 output is the report's input
-    cli.main(["stage3", "--dataset", "Facade", "--relative", "reference",
-              "--methods", "SLERP", "--output-root", str(tmp_path)])
+    cli.main(["stage3", "--dataset", "Facade", "--relative",
+              _relative_circuit(tmp_path), "--methods", "SLERP",
+              "--output-root", str(tmp_path)])
     capsys.readouterr()
     rc = cli.main(["report", "--dataset", "Facade", "--methods", "SLERP",
                    "--output-root", str(tmp_path)])

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pcr_tpu.ops import fpfh as fpfh_mod
-from pcr_tpu.utils import cloud
+from pcreg.ops import fpfh as fpfh_mod
+from pcreg.utils import cloud
 
 
 def np_pair_features(p, np_, q, nq_):
@@ -103,31 +103,3 @@ def test_fpfh_padding_invariance(rng):
         )[:64]
         feats.append(f)
     np.testing.assert_allclose(feats[0], feats[1], atol=1e-3)
-
-
-def test_weighted_spfh_matmul_matches_gather(rng):
-    """The TPU pass-2 matmul (_weighted_spfh_matmul) equals the gather
-    formulation: sum over neighbors with d2 <= tau of spfh_j / d2_ij."""
-    n, cap = 300, 384
-    pts = rng.normal(size=(n, 3)).astype(np.float32) * 10.0
-    c = cloud.from_numpy(pts, capacity=cap)
-    spfh = rng.uniform(size=(cap, 33)).astype(np.float32)
-    # per-query threshold midway between the 8th and 9th neighbor (so the
-    # kernel's ~1e-5 matmul-metric noise cannot flip set membership), capped
-    # at radius^2
-    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
-    np.fill_diagonal(d2, np.inf)
-    s = np.sort(d2, axis=1)
-    tau = np.minimum(0.5 * (s[:, 7] + s[:, 8]), 25.0).astype(np.float32)
-    tau_full = np.zeros((cap,), np.float32)
-    tau_full[:n] = tau
-
-    out = np.asarray(fpfh_mod._weighted_spfh_matmul(
-        c.points, c.mask, jnp.asarray(spfh), jnp.asarray(tau_full), q_tile=128))[:n]
-
-    oracle = np.zeros((n, 33), np.float32)
-    for i in range(n):
-        nb = np.where(d2[i] <= tau[i])[0]
-        for j in nb:
-            oracle[i] += spfh[j] / d2[i, j]
-    np.testing.assert_allclose(out, oracle, rtol=2e-3, atol=1e-3)

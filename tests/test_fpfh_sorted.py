@@ -4,8 +4,8 @@ oracle and the selection-path implementations."""
 import numpy as np
 import jax.numpy as jnp
 
-from pcr_tpu.ops import fpfh_sorted
-from pcr_tpu.utils import cloud
+from pcreg.ops import fpfh_sorted
+from pcreg.utils import cloud
 from tests.test_fpfh import np_fpfh
 
 
@@ -33,7 +33,7 @@ def test_banded_fpfh_matches_oracle(rng):
 def test_banded_normals_match_selection_path(rng):
     """The banded moments normals must agree with the selection-path hybrid
     normals (same Hybrid(2v, 20) semantics, same nz >= 0 sign convention)."""
-    from pcr_tpu.models import fgr as fgr_mod
+    from pcreg.models import fgr as fgr_mod
 
     pts = rng.uniform(-2, 2, size=(800, 3)).astype(np.float32)
     pts[:, 2] = 0.1 * np.sin(pts[:, 0] * 2) + 0.05 * pts[:, 1]
@@ -82,10 +82,10 @@ def test_banded_downstream_fgr_recovers_pose(rng):
     """End-to-end: FGR with banded features recovers a known pose on
     overlapping synthetic scans (the downstream validation path the module
     docstring promises)."""
-    from pcr_tpu.models import fgr as fgr_mod
-    from pcr_tpu.utils import se3
+    from pcreg.models import fgr as fgr_mod
+    from pcreg.utils import se3
     from tests.test_pipeline import _bumpy_clouds
-    from pcr_tpu import pipeline as pl
+    from pcreg import pipeline as pl
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=2, n=900, cap=1024, step=0.3)
     feats = [fpfh_sorted.fgr_features_sorted(c, 0.2, q_tile=256, band=512)
@@ -96,48 +96,3 @@ def test_banded_downstream_fgr_recovers_pose(rng):
     _, dt = se3.pose_errors(np.asarray(res.transformation, np.float64), gt[1])
     assert float(res.fitness) > 0.4
     assert float(dt) < 0.25, (dt, np.asarray(res.transformation))
-
-
-def test_pallas_backend_matches_xla(rng):
-    """The fused Pallas kernels (interpret mode on CPU) must reproduce the
-    XLA banded path: same sorted points/mask, same normals, features to f32
-    reduction-order tolerance.  Covers the atan2-free f3 binning and the
-    CDF-histogram reformulation (ops/pallas/feature_kernels)."""
-    pts = rng.uniform(-2, 2, size=(800, 3)).astype(np.float32)
-    pts[:, 2] = 0.1 * np.sin(pts[:, 0] * 2) + 0.05 * pts[:, 1]
-    c = cloud.from_numpy(pts, capacity=1024)
-    cx, fx = fpfh_sorted.fgr_features_sorted(
-        c, 0.2, q_tile=256, band=512, backend="xla")
-    cp, fp = fpfh_sorted.fgr_features_sorted(
-        c, 0.2, q_tile=256, band=512, backend="pallas_interpret")
-    Mx = np.asarray(cx.mask)
-    assert (Mx == np.asarray(cp.mask)).all()
-    np.testing.assert_allclose(np.asarray(cx.points), np.asarray(cp.points))
-    Nx, Np_ = np.asarray(cx.normals), np.asarray(cp.normals)
-    nd = np.minimum(np.linalg.norm(Nx - Np_, axis=1),
-                    np.linalg.norm(Nx + Np_, axis=1))[Mx]
-    assert nd.max() < 1e-4, nd.max()
-    Fx, Fp = np.asarray(fx)[Mx], np.asarray(fp)[Mx]
-    l1 = np.abs(Fx - Fp).sum(1) / (np.abs(Fx).sum(1) + 1e-9)
-    assert np.percentile(l1, 99) < 1e-4, (np.median(l1), l1.max())
-
-
-def test_pallas_backend_oracle(rng):
-    """Pallas path (interpret) vs the O(n^2) numpy FPFH oracle with known
-    normals — the same contract as test_banded_fpfh_matches_oracle."""
-    pts = rng.uniform(-1, 1, size=(96, 3)).astype(np.float32)
-    nrm = rng.normal(size=(96, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    c = cloud.from_numpy(pts, capacity=128)
-    nin = np.zeros((128, 3), np.float32)
-    nin[:96] = nrm
-    c2, f2 = fpfh_sorted.fgr_features_sorted(
-        c, 0.1, q_tile=128, band=128, max_nn=25, normals_in=jnp.asarray(nin),
-        backend="pallas_interpret")
-    P2, M2, N2 = np.asarray(c2.points), np.asarray(c2.mask), np.asarray(c2.normals)
-    assert M2.sum() == 96
-    oracle = np_fpfh(P2[M2].astype(np.float64), N2[M2].astype(np.float64), 1.0, 25)
-    F2 = np.asarray(f2)[M2]
-    l1 = np.abs(F2 - oracle).sum(1) / (np.abs(oracle).sum(1) + 1e-9)
-    assert (l1 < 0.07).mean() > 0.95, (np.median(l1), l1.max())
-    np.testing.assert_allclose(F2.sum(), oracle.sum(), rtol=0.02)

@@ -1,30 +1,33 @@
-"""Native C++ PCD reader (pcr_tpu/native) vs the Python format authority.
+"""Native C++ PCD reader (pcreg/native) vs the Python format authority.
 
 The Python parser in utils/pcd.py defines the format semantics; the native
-reader must agree bit-for-bit on the shipped reference scans (binary, with and
-without rgb) and on ascii files produced by write_pcd.
+reader must agree bit-for-bit on binary scans (with and without rgb) and on
+ascii files, all produced by write_pcd.
 """
 
 import numpy as np
 import pytest
 
-from pcr_tpu import native
-from pcr_tpu.utils import cloud, pcd, poses_io
+from pcreg import native
+from pcreg.utils import cloud, pcd
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
 )
 
 
-def _paths():
-    return [
-        poses_io.reference_cloud_path("NCLT", 0),       # binary, xyz
-        poses_io.reference_cloud_path("Facade", 0),     # binary, xyz + rgb
-    ]
+def _write_scan(path, n, seed, rgb):
+    """A binary PCD scan of ``n`` LiDAR-scale points (+ packed rgb)."""
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-40.0, 40.0, size=(n, 3)).astype(np.float32)
+    colors = rng.uniform(size=(n, 3)).astype(np.float32) if rgb else None
+    pcd.write_pcd(path, points, colors=colors, binary=True)
+    return str(path)
 
 
-@pytest.mark.parametrize("path", _paths())
-def test_native_matches_python_parser(path):
+@pytest.mark.parametrize("rgb", [False, True], ids=["xyz", "xyz_rgb"])
+def test_native_matches_python_parser(tmp_path, rgb):
+    path = _write_scan(tmp_path / "s0.pcd", 3001, 0, rgb)
     ref = pcd.read_pcd(path)
     cap = cloud.round_up(ref.points.shape[0])
     pts, mask, cols, n = native.read_pcd_padded(path, cap, cloud.PAD_COORD)
@@ -38,9 +41,10 @@ def test_native_matches_python_parser(path):
         np.testing.assert_allclose(cols[:n], ref.colors, atol=1e-6)
 
 
-def test_native_batch_matches_single():
-    paths = [poses_io.reference_cloud_path("NCLT", i) for i in range(3)]
-    cap = cloud.BUCKETS["NCLT"]
+def test_native_batch_matches_single(tmp_path):
+    paths = [_write_scan(tmp_path / f"s{i}.pcd", 2000 + 500 * i, i, False)
+             for i in range(3)]
+    cap = 4096
     pts, mask, cols, counts = native.read_pcd_batch_padded(paths, cap, cloud.PAD_COORD)
     assert pts.shape == (3, cap, 3) and mask.shape == (3, cap)
     for b, p in enumerate(paths):

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pcr_tpu.ops import eigen3, knn, normals, outlier, voxel
-from pcr_tpu.utils import cloud
+from pcreg.ops import eigen3, knn, normals, outlier, voxel
+from pcreg.utils import cloud
 
 
 def make_points(rng, n, cap=None, scale=10.0):
@@ -87,7 +87,7 @@ def test_nn1_matches_knn(rng):
     a = rng.normal(size=(400, 3)).astype(np.float32)
     b = rng.normal(size=(300, 3)).astype(np.float32)
     ca, cb = cloud.from_numpy(a, capacity=512), cloud.from_numpy(b, capacity=512)
-    d1, i1 = knn.nn1(ca.points, cb.points, cb.mask, q_tile=128, r_chunk=128)
+    d1, i1 = knn.nn1_exact(ca.points, cb.points, cb.mask, q_tile=128, r_chunk=128)
     od2, oidx = np_knn(a, b, 1)
     np.testing.assert_allclose(np.asarray(d1)[:400], od2[:, 0], rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(i1)[:400], oidx[:, 0])

@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pcr_tpu.models import gicp
-from pcr_tpu.models.global_refine import pose_graph
-from pcr_tpu.ops import normals as normals_ops
-from pcr_tpu.parallel import distributed_pg, mesh as mesh_mod, pair_sharding
-from pcr_tpu.utils import cloud, se3
+from pcreg.models import gicp
+from pcreg.models.global_refine import pose_graph
+from pcreg.ops import normals as normals_ops
+from pcreg.parallel import distributed_pg, mesh as mesh_mod, pair_sharding
+from pcreg.utils import cloud, se3
 from tests.test_global_refine import make_pose_graph
 
 pytestmark = pytest.mark.skipif(
@@ -80,8 +80,8 @@ def test_distributed_global_optimization_closes_loop(rng):
 def test_sharded_nn1_matches_single(rng):
     """Point sharding: ref rows split over the 'points' axis; result must be
     bit-identical to the single-device exact merge."""
-    from pcr_tpu.ops import knn as knn_ops
-    from pcr_tpu.parallel import point_sharding
+    from pcreg.ops import knn as knn_ops
+    from pcreg.parallel import point_sharding
 
     q = rng.uniform(-5, 5, size=(2048, 3)).astype(np.float32)
     r = rng.uniform(-5, 5, size=(4096, 3)).astype(np.float32)
@@ -97,8 +97,8 @@ def test_sharded_nn1_matches_single(rng):
 
 
 def test_sharded_knn_matches_single(rng):
-    from pcr_tpu.ops import knn as knn_ops
-    from pcr_tpu.parallel import point_sharding
+    from pcreg.ops import knn as knn_ops
+    from pcreg.parallel import point_sharding
 
     q = rng.uniform(-5, 5, size=(512, 3)).astype(np.float32)
     r = rng.uniform(-5, 5, size=(2048, 3)).astype(np.float32)
@@ -117,7 +117,7 @@ def test_sharded_knn_matches_single(rng):
 def _fgr_pair_batch(rng, B=8, n=400, cap=512, voxel=0.2):
     """B synthetic FGR-ready pairs: per-scan features from fgr_features, the
     stage-1 preprocessing (normals + FPFH)."""
-    from pcr_tpu.models import fgr as fgr_mod
+    from pcreg.models import fgr as fgr_mod
 
     srcs, tgts, fss, fts = [], [], [], []
     for b in range(B):
@@ -137,7 +137,7 @@ def _fgr_pair_batch(rng, B=8, n=400, cap=512, voxel=0.2):
 def test_sharded_fgr_matches_batched(rng):
     """Stage-1 pair parallelism (SURVEY §2.4): shard_map over 'pairs' must
     reproduce the single-device vmapped FGR."""
-    from pcr_tpu.models import fgr as fgr_mod
+    from pcreg.models import fgr as fgr_mod
 
     src, tgt, fs, ft = _fgr_pair_batch(rng, B=8)
     opts = fgr_mod.FgrOptions(
@@ -157,9 +157,9 @@ def test_sharded_fgr_matches_batched(rng):
 
 
 def test_sharded_fgr_features_matches_batched(rng):
-    from pcr_tpu.models import fgr as fgr_mod
+    from pcreg.models import fgr as fgr_mod
 
-    from pcr_tpu.ops import fpfh_sorted
+    from pcreg.ops import fpfh_sorted
 
     pts = [rng.uniform(-3, 3, size=(300, 3)).astype(np.float32) for _ in range(8)]
     stacked = cloud.stack_clouds([cloud.from_numpy(p, capacity=512) for p in pts])
@@ -183,7 +183,7 @@ def test_sharded_fgr_features_matches_batched(rng):
 def test_point_sharded_gicp_matches_single(rng):
     """VERDICT r2 item 2: the point-sharding CONSUMER — a full GICP loop with
     source rows sharded over 'points' must match single-device registration."""
-    from pcr_tpu.parallel import point_sharding
+    from pcreg.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=1, n=900, cap=1024)
     src1 = jax.tree.map(lambda x: x[0], src)
@@ -202,8 +202,8 @@ def test_point_sharded_gicp_matches_single(rng):
 
 
 def test_point_sharded_multiscale_matches_single(rng):
-    from pcr_tpu.models import multiscale as ms_mod
-    from pcr_tpu.parallel import point_sharding
+    from pcreg.models import multiscale as ms_mod
+    from pcreg.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=1, n=900, cap=1024)
     src1 = jax.tree.map(lambda x: x[0], src)
@@ -226,7 +226,7 @@ def test_sharded_gicp_2d_matches_batched(rng):
     (2 pairs x 4 points) mesh — pair batch on 'pairs', source rows on
     'points' with per-iteration psum of the normal equations — must match
     the single-device batched result."""
-    from pcr_tpu.parallel import point_sharding
+    from pcreg.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=2, n=900, cap=1024)
     m2 = mesh_mod.make_2d_mesh(2, 4)
@@ -248,7 +248,7 @@ def test_sharded_mgicp_2d_matches_batched(rng):
     — per-pair preprocessing sharded over 'pairs', every scale's solve with
     source rows split over 'points' — must match the single-device
     batched_mgicp used by the streamed stage-2 runner."""
-    from pcr_tpu.parallel import point_sharding
+    from pcreg.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=2, n=900, cap=1024)
     # raw clouds (no precomputed normals): both paths preprocess per scale

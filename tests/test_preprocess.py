@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pcr_tpu.ops import normals, outlier, preprocess, voxel
-from pcr_tpu.utils import cloud
+from pcreg.ops import normals, outlier, preprocess, voxel
+from pcreg.utils import cloud
 
 
 def make_surface(rng, n=4000, cap=4096):
@@ -148,40 +148,3 @@ def test_plan_scale_caps_covers_voxel_counts():
         assert cap >= worst
         assert cap <= max(worst + 256, 256)
         assert cap % 256 == 0 or cap == clouds[0].capacity
-
-
-def test_preprocess_pallas_matches_xla(rng):
-    """The Pallas preprocess kernels (interpret mode on CPU) must reproduce
-    the XLA spacing_hint path: same survivor set, same normals
-    (ops/pallas/feature_kernels O1/O2)."""
-    import jax.numpy as jnp
-
-    from pcr_tpu.ops import preprocess as pre
-
-    pts = rng.uniform(-2, 2, size=(900, 3)).astype(np.float32)
-    pts[:, 2] = 0.1 * np.sin(pts[:, 0] * 2) + 0.05 * pts[:, 1]
-    pts[:5] += 40.0  # gross outliers the filter must drop
-    c = cloud.from_numpy(pts, capacity=1024)
-    cx = pre.outlier_and_normals_sorted(
-        c.points, c.mask, 30, 1.0, 20, band=512, spacing_hint=0.2,
-        backend="xla")
-    cp = pre.outlier_and_normals_sorted(
-        c.points, c.mask, 30, 1.0, 20, band=512, spacing_hint=0.2,
-        backend="pallas_interpret")
-    Mx, Mp = np.asarray(cx.mask), np.asarray(cp.mask)
-    assert Mx.sum() == Mp.sum()
-    # same survivor POINT SET (sorted order may tie-break differently)
-    sx = {tuple(np.round(p, 5)) for p in np.asarray(cx.points)[Mx]}
-    sp = {tuple(np.round(p, 5)) for p in np.asarray(cp.points)[Mp]}
-    assert sx == sp
-    # normals agree pointwise (match rows by coordinates)
-    lut = {tuple(np.round(p, 5)): i
-           for i, p in enumerate(np.asarray(cx.points)) if Mx[i]}
-    Nx, Np_ = np.asarray(cx.normals), np.asarray(cp.normals)
-    diffs = []
-    for j in np.nonzero(Mp)[0]:
-        i = lut[tuple(np.round(np.asarray(cp.points)[j], 5))]
-        diffs.append(min(np.linalg.norm(Nx[i] - Np_[j]),
-                         np.linalg.norm(Nx[i] + Np_[j])))
-    assert np.median(diffs) < 1e-4
-    assert np.percentile(diffs, 99) < 0.05
