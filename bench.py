@@ -32,7 +32,7 @@ def bench_per_scale(jax, jnp, np, clouds, scale_caps, init):
     its own jit + block_until_ready)."""
     import time as _t
 
-    from pcreg.models import gicp as gicp_mod, multiscale as ms_mod
+    from pcr_tpu.models import gicp as gicp_mod, multiscale as ms_mod
 
     out = {}
     # Salted inputs: no timed call repeats the exact arguments of a warmup
@@ -67,9 +67,9 @@ def bench_per_scale(jax, jnp, np, clouds, scale_caps, init):
 def bench_fgr(jax, jnp, np, clouds, n_pairs):
     """Stage-1 steady state: per-cloud features (shared by 2 pairs) + per-pair
     match/GNC — the reference's hottest kernel (FPFH 200-NN, 1_...py:48-50)."""
-    from pcreg import pipeline
-    from pcreg.models import fgr as fgr_mod
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu import pipeline
+    from pcr_tpu.models import fgr as fgr_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     feats = {}
     # Per-cloud buckets ONCE, outside the timed region: bucket_capacity on a
@@ -112,9 +112,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from pcreg.models import multiscale as ms_mod
-    from pcreg.parallel import pair_sharding
-    from pcreg.utils import cloud, poses_io
+    from pcr_tpu.models import multiscale as ms_mod
+    from pcr_tpu.parallel import pair_sharding
+    from pcr_tpu.utils import cloud, poses_io
 
     n_clouds = N_PAIRS + 1
     clouds = cloud.load_dataset("NCLT", indices=range(n_clouds))
@@ -122,7 +122,7 @@ def main():
     scale_caps = cloud.plan_scale_caps(clouds, ms_mod.create_scales(5))
     # Make clouds device-resident up front, so host->device transfers stay
     # out of the timed region (the pipeline streams scans; see
-    # pcreg/pipeline.py).
+    # pcr_tpu/pipeline.py).
     clouds = jax.block_until_ready([jax.tree.map(jnp.asarray, c) for c in clouds])
     init = np.stack(
         [

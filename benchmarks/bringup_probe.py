@@ -49,9 +49,9 @@ def main() -> int:
     import jax.numpy as jnp
 
     import chip_smoke
-    from pcreg.models import gicp, multiscale
-    from pcreg.ops import knn
-    from pcreg.utils import cloud, device
+    from pcr_tpu.models import gicp, multiscale
+    from pcr_tpu.ops import knn
+    from pcr_tpu.utils import cloud, device
 
     out = {"device": device.describe()}
     scans, poses = chip_smoke.generate(0, n_scans=2)

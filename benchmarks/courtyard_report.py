@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(root="outputs"):
     import numpy as np
 
-    from pcreg import pipeline
-    from pcreg.utils import device, poses_io, se3
+    from pcr_tpu import pipeline
+    from pcr_tpu.utils import device, poses_io, se3
 
     cfg = pipeline.PipelineConfig(dataset="Courtyard", output_root=root)
     t0 = time.time()

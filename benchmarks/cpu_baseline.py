@@ -23,7 +23,7 @@ from scipy.spatial import cKDTree
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pcreg.utils import pcd, poses_io  # noqa: E402
+from pcr_tpu.utils import pcd, poses_io  # noqa: E402
 
 EPS = 1e-3
 

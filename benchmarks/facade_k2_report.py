@@ -25,9 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(root="outputs"):
     import numpy as np
 
-    from pcreg.models import graph_builder
-    from pcreg.models.global_refine import pose_graph as pg
-    from pcreg.utils import cloud as cloud_mod, device, poses_io, se3
+    from pcr_tpu.models import graph_builder
+    from pcr_tpu.models.global_refine import pose_graph as pg
+    from pcr_tpu.utils import cloud as cloud_mod, device, poses_io, se3
 
     n, k = 7, 2
     t0 = time.time()
@@ -49,7 +49,7 @@ def main(root="outputs"):
     dR, dt = np.asarray(dR), np.asarray(dt)
     aligned = None
     try:
-        from pcreg.models import evaluate as eval_mod
+        from pcr_tpu.models import evaluate as eval_mod
 
         aligned = eval_mod.aligned_ate(nodes, ref_abs)
     except Exception:

@@ -1,7 +1,7 @@
 """Facade full-circuit evidence report.
 
 Reads this repo's own end-to-end Facade outputs (outputs/<stage>/Facade —
-produced by ``python -m pcreg full --dataset Facade``) plus the reference
+produced by ``python -m pcr_tpu full --dataset Facade``) plus the reference
 fixtures, and writes outputs/Facade_summary.json: stage-2 agreement vs the
 shipped FGR_GICP fixtures, circuit closure per stage, per-method stage-3 ATE
 vs the shipped absolute fixtures (ATE-level targets, SURVEY §0), and the
@@ -18,7 +18,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pcreg.utils import device, poses_io, se3  # noqa: E402
+from pcr_tpu.utils import device, poses_io, se3  # noqa: E402
 
 
 def closure(rel):

@@ -24,7 +24,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pcreg.utils import poses_io, se3  # noqa: E402
+from pcr_tpu.utils import poses_io, se3  # noqa: E402
 
 
 def closure(rel):
@@ -69,14 +69,14 @@ def main(root="outputs", sweep=False):
     # edge consistency — did the refinement BEAT the raw chain? — plus the
     # optional cloud-backed fitness/RMSE sweep (the reference's quantitative
     # ranking, 3_...py:368-400 / ALL_FUNCTIONS.py:801-824).
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     methods = {}
     chained = np.asarray(se3.relative_to_absolute(s2))
     clouds = None
     if sweep:
-        from pcreg import pipeline
-        from pcreg.utils import cloud as cloud_mod
+        from pcr_tpu import pipeline
+        from pcr_tpu.utils import cloud as cloud_mod
 
         clouds = cloud_mod.load_dataset_lazy("NCLT", indices=range(n))
         fit, rmse = pipeline.evaluate_circuit(clouds, s2, max_dist=0.2)
@@ -139,7 +139,7 @@ def main(root="outputs", sweep=False):
             "beats_raw_chain_dt_max": bool(cons["dt_max_m"] < raw_cons["dt_max_m"]),
         }
         if sweep and clouds is not None:
-            from pcreg import pipeline
+            from pcr_tpu import pipeline
 
             rel_m = np.asarray(se3.absolute_to_relative_circuit(poses))
             fit, rmse = pipeline.evaluate_circuit(clouds, rel_m, max_dist=0.2)

@@ -1,7 +1,8 @@
 """Bring-up smoke test: the registration pipeline end to end on one GPU.
 
-    python chip_smoke.py              # phases (a)-(d) on one GPU
-    python chip_smoke.py --chips 4    # phase (e) alone, over four GPUs
+    python chip_smoke.py                          # phases (a)-(d), one GPU
+    python chip_smoke.py --chips 4                # phase (e) alone, four GPUs
+    python chip_smoke.py --chips 4 --only points  # phase (e), 2x2 mesh only
 
 Phases, in one process:
 
@@ -15,12 +16,14 @@ Phases, in one process:
       per scan, the 32,768 bucket), keeping the ground-truth poses;
   (c) kernels — each device kernel of the main path, compiled for the card
       at real width, against the repo's plain reference;
-  (d) main path — ``python -m pcreg full --dataset NCLT --n 16`` in-process
+  (d) main path — ``python -m pcr_tpu full --dataset NCLT --n 16`` in-process
       (stages 1->2->3, all four stage-3 methods), cold and then warm, with
       the stage-2 relative poses checked against ground truth;
-  (e) ``--chips 4`` only — stage 1 + stage 2 over a 4-device 'pairs' mesh
-      and stage 2 over a 2x2 pairs x points mesh, each against the
-      single-device run, by pose agreement.
+  (e) ``--chips 4`` only — the single-device stage 1 + stage 2 baseline,
+      then stage 2 over a 2x2 pairs x points mesh and stage 1 + stage 2 over
+      a 4-device 'pairs' mesh, each against the baseline by pose agreement
+      (``--only points|pairs`` runs the baseline and one of the two).  A run
+      that hangs dumps every thread's stack and exits non-zero.
 
 Any failed check raises, so the process exits non-zero.  The last line of
 standard output is one JSON object naming the device, printed only when
@@ -58,10 +61,20 @@ RANGE_NOISE = 0.02        # m, 1 sigma (HDL-32E: +-2 cm)
 DROPOUT = 0.03
 SENSOR_HEIGHT = 1.2
 
-# Stage-2 pose bounds against ground truth.
-MEDIAN_T_ERR = 0.05       # m
-MAX_T_ERR = 0.25          # m
-MAX_R_ERR_DEG = 1.0
+# Stage-2 pose bounds against ground truth.  On the H100 stage 2 lands at
+# median 0.7 mm, max 1.4 mm, 0.0175 deg; stage 1 alone (FGR) at median 46 mm,
+# max 0.13 m, 0.81 deg.  The bounds sit between the two, so a GICP that
+# returned its FGR init unchanged fails them; so does one that does not halve
+# the stage-1 median error.
+MEDIAN_T_ERR = 0.01       # m
+MAX_T_ERR = 0.02          # m
+MAX_R_ERR_DEG = 0.2
+STAGE1_GAIN = 0.5         # stage-2 median dt <= this x stage-1 median dt
+
+# Phase (e): a CLI run still going after this long is taken to hang (the
+# slowest seen, stage 2 over a 1-device mesh with a cold compile cache, took
+# 143 s on an H100, 101 s of it compiling).
+HANG_SECONDS = 300
 
 
 class CheckFailed(RuntimeError):
@@ -263,7 +276,7 @@ def relative_ground_truth(poses: np.ndarray) -> np.ndarray:
 
 def write_dataset(root: str, scans) -> str:
     """Write scans as binary PCDs where the NCLT loader looks for them."""
-    from pcreg.utils import pcd
+    from pcr_tpu.utils import pcd
 
     d = os.path.join(root, "nuvens", "nuvens_pre_processadas", "NCLT")
     os.makedirs(d, exist_ok=True)
@@ -292,7 +305,7 @@ def device_phase(jax, want: int) -> None:
                          f"{devs[0].platform} ({devs[0].device_kind})")
     if len(devs) < want:
         raise SystemExit(f"chip_smoke: needs {want} GPUs, JAX found {len(devs)}")
-    from pcreg.utils import device
+    from pcr_tpu.utils import device
 
     print(f"nvidia-smi: {device.nvidia_smi()}")
     print(f"jax {jax.__version__}: {len(devs)} x {devs[0].device_kind}")
@@ -335,10 +348,10 @@ def kernel_phase(scans) -> dict:
     import jax
     import jax.numpy as jnp
 
-    from pcreg.models import multiscale
-    from pcreg.ops import band_nn, fpfh, fpfh_sorted, grid_nn, knn, normals
-    from pcreg.ops import outlier, preprocess, voxel
-    from pcreg.utils import cloud, se3
+    from pcr_tpu.models import multiscale
+    from pcr_tpu.ops import band_nn, fpfh, fpfh_sorted, grid_nn, knn, normals
+    from pcr_tpu.ops import outlier, preprocess, voxel
+    from pcr_tpu.utils import cloud, se3
 
     t0 = time.time()
     c0 = cloud.from_numpy(scans[0], capacity=BUCKET)
@@ -449,24 +462,34 @@ def kernel_phase(scans) -> dict:
 # (d) main path
 # ---------------------------------------------------------------------------
 
-def _stage2_check(label: str, rel_dir: str, rel_gt: np.ndarray) -> None:
-    from pcreg.utils import poses_io
+def _stage2_check(label: str, root: str, rel_gt: np.ndarray,
+                  fgr_dir: str | None = None) -> None:
+    """Stage-2 relative poses under ``root`` against ground truth, and
+    against the stage-1 poses that seeded them (under ``fgr_dir``, default
+    ``root``)."""
+    from pcr_tpu.utils import poses_io
 
-    est = poses_io.load_relative_circuit(rel_dir, len(rel_gt))
-    dt, dr = pose_errors(est, rel_gt)
-    print(f"{label}: stage-2 vs ground truth: translation median "
-          f"{np.median(dt):.4f} m, max {dt.max():.4f} m; rotation max "
-          f"{dr.max():.4f} deg; per pair dt {np.round(dt, 4).tolist()}")
+    errs = {}
+    for stage, d in (("FGR", fgr_dir or root), ("FGR_GICP", root)):
+        est = poses_io.load_relative_circuit(
+            os.path.join(d, f"relative_poses_{stage}", "NCLT"), len(rel_gt))
+        dt, dr = errs[stage] = pose_errors(est, rel_gt)
+        print(f"{label}: {stage} vs ground truth: translation median "
+              f"{np.median(dt):.4f} m, max {dt.max():.4f} m; rotation max "
+              f"{dr.max():.4f} deg; per pair dt {np.round(dt, 4).tolist()}")
+    dt, dr = errs["FGR_GICP"]
     check(np.median(dt) <= MEDIAN_T_ERR and dt.max() <= MAX_T_ERR
           and dr.max() <= MAX_R_ERR_DEG,
-          f"{label}: median dt <= {MEDIAN_T_ERR} m, max dt <= {MAX_T_ERR} m, "
-          f"max dR <= {MAX_R_ERR_DEG} deg")
+          f"{label}: stage 2 median dt <= {MEDIAN_T_ERR} m, max dt <= "
+          f"{MAX_T_ERR} m, max dR <= {MAX_R_ERR_DEG} deg")
+    check(np.median(dt) <= STAGE1_GAIN * np.median(errs["FGR"][0]),
+          f"{label}: stage 2 median dt <= {STAGE1_GAIN} x stage 1's")
 
 
 def main_path_phase(rel_gt: np.ndarray) -> dict:
     import jax
 
-    from pcreg import __main__ as cli
+    from pcr_tpu import __main__ as cli
 
     out = {}
     for run in ("cold", "warm"):
@@ -478,8 +501,7 @@ def main_path_phase(rel_gt: np.ndarray) -> dict:
         check(rc == 0, f"full run ({run}) exit code 0")
         print(f"full run ({run}): {dt:.2f} s for {N_SCANS} pairs, stages 1-3")
         out[f"{run}_seconds"] = dt
-        _stage2_check(f"full run ({run})",
-                      os.path.join(root, "relative_poses_FGR_GICP", "NCLT"), rel_gt)
+        _stage2_check(f"full run ({run})", root, rel_gt)
         for m in ("LUM", "SLERP", "SLERP_LUM", "pose_graph"):
             check(os.path.exists(os.path.join(
                 root, f"absolute_poses_{m}", "NCLT", f"pose{N_SCANS - 1}.txt")),
@@ -494,52 +516,72 @@ def main_path_phase(rel_gt: np.ndarray) -> dict:
 # (e) four devices
 # ---------------------------------------------------------------------------
 
-def four_chip_phase(rel_gt: np.ndarray) -> dict:
-    from pcreg import __main__ as cli
-    from pcreg.utils import poses_io
+def _cli_run(cli, argv: list[str], label: str) -> float:
+    """One in-process CLI run; seconds.  A run that outlives HANG_SECONDS
+    dumps every thread's stack to stderr and ends the process."""
+    import faulthandler
 
-    n = str(N_SCANS)
-    base = ["--dataset", "NCLT", "--n", n]
-    root = os.path.join(WORK, "four")
-    runs = {"devices1": ["--devices", "1"], "devices4": ["--devices", "4"]}
-    secs = {}
-    for name, mesh in runs.items():
-        out = os.path.join(root, name)
-        t0 = time.time()
-        check(cli.main(["stage1", *base, *mesh, "--output-root", out]) == 0,
-              f"stage1 {' '.join(mesh)} exit code 0")
-        check(cli.main(["stage2", *base, *mesh, "--output-root", out]) == 0,
-              f"stage2 {' '.join(mesh)} exit code 0")
-        secs[name] = time.time() - t0
-    init = os.path.join(root, "devices1", "relative_poses_FGR", "NCLT")
-    out = os.path.join(root, "pairs2_points2")
+    print(f"{label}: start", flush=True)
+    faulthandler.dump_traceback_later(HANG_SECONDS, exit=True)
     t0 = time.time()
-    check(cli.main(["stage2", *base, "--devices", "2", "--shard-points", "2",
-                    "--init", init, "--output-root", out]) == 0,
-          "stage2 --devices 2 --shard-points 2 exit code 0")
-    secs["pairs2_points2"] = time.time() - t0
+    try:
+        rc = cli.main(argv)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    dt = time.time() - t0
+    check(rc == 0, f"{label} exit code 0 ({dt:.2f} s)")
+    return dt
+
+
+def four_chip_phase(rel_gt: np.ndarray, only: str | None = None) -> dict:
+    """The single-device baseline once, then the 2x2 pairs x points mesh and
+    the 4-device pairs mesh, each compared with the baseline as soon as it
+    ends."""
+    from pcr_tpu import __main__ as cli
+    from pcr_tpu.utils import poses_io
+
+    base = ["--dataset", "NCLT", "--n", str(N_SCANS)]
+    root = os.path.join(WORK, "four")
+    result = {"seconds": {}}
+
+    def run(name, stage, mesh, *extra):
+        argv = [stage, *base, *mesh, *extra,
+                "--output-root", os.path.join(root, name)]
+        result["seconds"][f"{name}_{stage}"] = _cli_run(cli, argv, f"{name} {stage}")
 
     def load(name, stage):
         return poses_io.load_relative_circuit(
             os.path.join(root, name, f"relative_poses_{stage}", "NCLT"), N_SCANS)
 
-    result = {"seconds": secs}
-    for a, b, stage in (("devices4", "devices1", "FGR"),
-                        ("devices4", "devices1", "FGR_GICP"),
-                        ("pairs2_points2", "devices1", "FGR_GICP")):
-        dt, dr = pose_errors(load(a, stage), load(b, stage))
-        key = f"{a}_vs_{b}_{stage}"
+    def compare(name, stage):
+        # Batch composition and psum order change float32 reduction order,
+        # and the chunks' capacity buckets differ.  Stage 1 may move inside
+        # its own error (tens of mm); stage 2 converges to the same optimum.
+        tol_m, tol_deg = (0.05, 0.5) if stage == "FGR" else (0.005, 0.1)
+        dt, dr = pose_errors(load(name, stage), load("devices1", stage))
+        key = f"{name}_vs_devices1_{stage}"
         result[key] = {"max_dt_m": float(dt.max()), "max_dR_deg": float(dr.max())}
         print(f"{key}: max translation diff {dt.max():.3g} m, max rotation "
-              f"diff {dr.max():.3g} deg")
-        if stage == "FGR_GICP":
-            check(dt.max() <= 0.05 and dr.max() <= 0.5,
-                  f"{key}: stage-2 poses agree within 0.05 m / 0.5 deg "
-                  "(batch composition changes float32 reduction order and "
-                  "the per-chunk capacity buckets)")
-    for name in ("devices1", "devices4", "pairs2_points2"):
-        _stage2_check(name, os.path.join(root, name, "relative_poses_FGR_GICP",
-                                         "NCLT"), rel_gt)
+              f"diff {dr.max():.3g} deg", flush=True)
+        check(dt.max() <= tol_m and dr.max() <= tol_deg,
+              f"{key}: poses agree within {tol_m} m / {tol_deg} deg")
+
+    run("devices1", "stage1", ["--devices", "1"])
+    run("devices1", "stage2", ["--devices", "1"])
+    _stage2_check("devices1", os.path.join(root, "devices1"), rel_gt)
+    if only in (None, "points"):
+        # stage 2 from the baseline's stage-1 poses
+        run("pairs2_points2", "stage2", ["--devices", "2", "--shard-points", "2"],
+            "--init", os.path.join(root, "devices1", "relative_poses_FGR", "NCLT"))
+        compare("pairs2_points2", "FGR_GICP")
+        _stage2_check("pairs2_points2", os.path.join(root, "pairs2_points2"),
+                      rel_gt, fgr_dir=os.path.join(root, "devices1"))
+    if only in (None, "pairs"):
+        run("devices4", "stage1", ["--devices", "4"])
+        compare("devices4", "FGR")
+        run("devices4", "stage2", ["--devices", "4"])
+        compare("devices4", "FGR_GICP")
+        _stage2_check("devices4", os.path.join(root, "devices4"), rel_gt)
     print("four-device result: " + json.dumps(result))
     return result
 
@@ -550,10 +592,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chips", type=int, choices=(1, 4), default=1,
                     help="4: run only the four-device mesh phase")
+    ap.add_argument("--only", choices=("points", "pairs"), default=None,
+                    help="with --chips 4: the baseline and only the 2x2 "
+                         "pairs x points mesh, or only the 4-device pairs mesh")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.only and args.chips != 4:
+        ap.error("--only needs --chips 4")
 
-    # pcreg reads its data root when it is first imported
+    # pcr_tpu reads its data root when it is first imported
     os.environ["PCR_REFERENCE_ROOT"] = DATA_ROOT
     import jax
 
@@ -577,7 +624,7 @@ def main(argv=None) -> int:
     report = {}
     with jax.default_matmul_precision("highest"):
         if args.chips == 4:
-            report["four"] = four_chip_phase(rel_gt)
+            report["four"] = four_chip_phase(rel_gt, args.only)
         else:
             report["kernels"] = kernel_phase(scans)
             report["main"] = main_path_phase(rel_gt)

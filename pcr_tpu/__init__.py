@@ -1,4 +1,4 @@
-"""pcreg — point-cloud registration with global refinement, in JAX.
+"""pcr_tpu — point-cloud registration with global refinement, in JAX.
 
 A from-scratch JAX/XLA framework with the capabilities of the reference repo
 ``Point-Cloud-Registration-with-Global-Refinement`` (FPFH+FGR coarse

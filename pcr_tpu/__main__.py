@@ -3,13 +3,13 @@
 The reference parameterizes its three entry-point scripts by editing constants
 in source (SURVEY §5: ``n_clouds = 901`` at 1_...py:126, ``voxel_size = 0.1``
 at 1_...py:131, iterations/scales at 2_...py:184-185).  Here the same knobs
-are flags over the restartable stage runners in pcreg/pipeline.py:
+are flags over the restartable stage runners in pcr_tpu/pipeline.py:
 
-  python -m pcreg stage1 --dataset Facade                 # FGR circuit
-  python -m pcreg stage2 --dataset Facade                 # M-GICP refine
-  python -m pcreg stage3 --dataset Facade                 # global shoot-out
-  python -m pcreg full   --dataset Facade --n 7           # all three
-  python -m pcreg report --dataset Facade                 # PLY/plot artifacts
+  python -m pcr_tpu stage1 --dataset Facade                 # FGR circuit
+  python -m pcr_tpu stage2 --dataset Facade                 # M-GICP refine
+  python -m pcr_tpu stage3 --dataset Facade                 # global shoot-out
+  python -m pcr_tpu full   --dataset Facade --n 7           # all three
+  python -m pcr_tpu report --dataset Facade                 # PLY/plot artifacts
 
 Each stage persists poses in the reference's own text layout
 (pose_{i+1}_{i}.txt / pose{i}.txt), so stages restart independently and
@@ -27,7 +27,7 @@ import time
 
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="python -m pcreg",
+        prog="python -m pcr_tpu",
         description="point-cloud registration with global refinement",
     )
     sub = p.add_subparsers(dest="command", required=True)

@@ -25,21 +25,27 @@ def maybe_initialize_distributed() -> bool:
     """Multi-host bring-up: call ``jax.distributed.initialize`` when the
     standard coordinator env vars are present (SURVEY §2.4 collectives row).
 
-    Triggers on JAX_COORDINATOR_ADDRESS, which needs JAX_NUM_PROCESSES and
-    JAX_PROCESS_ID beside it (nothing is auto-detected).  Idempotent; returns
-    True when running multi-process.  Without the variables this is a no-op
-    and the same mesh code paths run over the local (or
+    Triggers on JAX_COORDINATOR_ADDRESS (+ JAX_NUM_PROCESSES / JAX_PROCESS_ID
+    where given; JAX infers what is left out) or, with PCR_MULTIHOST=1, on the
+    cluster environment that jax.distributed auto-detects (SLURM, Open MPI,
+    ...).  Idempotent; returns True when running multi-process.  On a single
+    host this is a no-op and the same mesh code paths run over local (or
     xla_force_host_platform_device_count virtual) devices.
     """
     global _distributed_initialized
     if _distributed_initialized:
         return jax.process_count() > 1
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    if coord:
-        jax.distributed.initialize(
-            coordinator_address=coord,
-            num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
-            process_id=int(os.environ["JAX_PROCESS_ID"]))
+    want = coord is not None or os.environ.get("PCR_MULTIHOST") == "1"
+    if want:
+        kw = {}
+        if coord:
+            kw["coordinator_address"] = coord
+            if "JAX_NUM_PROCESSES" in os.environ:
+                kw["num_processes"] = int(os.environ["JAX_NUM_PROCESSES"])
+            if "JAX_PROCESS_ID" in os.environ:
+                kw["process_id"] = int(os.environ["JAX_PROCESS_ID"])
+        jax.distributed.initialize(**kw)
         _distributed_initialized = True
     return jax.process_count() > 1
 

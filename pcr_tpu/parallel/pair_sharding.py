@@ -5,6 +5,11 @@ The replacement for the reference's serial per-pair loops
 ``vmap`` batches them on a device, and ``shard_map`` splits the batch across
 the ``pairs`` mesh axis so every device registers its own shard of the circuit
 concurrently.  Results are gathered back replicated.
+
+The mesh entry points are jitted with the mesh and the configuration static:
+each call is one XLA program, compiled once per shape.  An eager (unjitted)
+``shard_map`` would instead compile and dispatch every primitive of the body
+on its own, once per chunk.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ def batched_mgicp(src: Cloud, tgt: Cloud, T_init, **kw):
     return jax.vmap(fn, in_axes=(0, 0, 0))(src, tgt, T_init)
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "mesh", "n_scales", "iterations", "loss", "scale_capacities", "schedule", "fused"))
 def sharded_mgicp(mesh: Mesh, src: Cloud, tgt: Cloud, T_init, **kw):
     """shard_map over the 'pairs' axis: each device runs its shard of pairs
     through the vmapped pyramid.  Batch size must be divisible by the mesh
@@ -55,6 +62,7 @@ def sharded_mgicp(mesh: Mesh, src: Cloud, tgt: Cloud, T_init, **kw):
     return run(src, tgt, T_init)
 
 
+@functools.partial(jax.jit, static_argnames=("mesh", "opts", "n_trials"))
 def sharded_fgr(mesh: Mesh, src: Cloud, tgt: Cloud, feat_src, feat_tgt,
                 seeds, opts, n_trials: int = 16384, max_tuples=None):
     """shard_map of stage-1 FGR over the 'pairs' axis: each device runs its
@@ -85,6 +93,8 @@ def sharded_fgr(mesh: Mesh, src: Cloud, tgt: Cloud, feat_src, feat_tgt,
                jnp.asarray(max_tuples))
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "mesh", "voxel_size", "features", "band"))
 def sharded_fgr_features(mesh: Mesh, clouds: Cloud, voxel_size,
                          features: str = "banded", band: int = 2048):
     """shard_map of per-scan FGR preprocessing (normals + FPFH) over 'pairs':

@@ -115,7 +115,9 @@ def point_sharded_gicp(mesh: Mesh, source, target, max_corr_dist, T_init, *,
 
     Source capacity must be divisible by the mesh axis size.  Returns a
     replicated RegistrationResult equal (up to psum summation order) to
-    ``models.gicp.registration_gicp`` on one device.
+    ``models.gicp.registration_gicp`` on one device.  Unjitted here: the
+    jitted callers (``point_sharded_multiscale_gicp``) trace it into their
+    program.
     """
     from ..models import gicp as gicp_mod
 
@@ -138,6 +140,8 @@ def point_sharded_gicp(mesh: Mesh, source, target, max_corr_dist, T_init, *,
     return run(source, target, jnp.asarray(T_init, jnp.float32))
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "mesh", "n_scales", "iterations", "loss", "axis", "corr_method"))
 def point_sharded_multiscale_gicp(mesh: Mesh, src_pyr, tgt_pyr, T_init, *,
                                   n_scales: int = 5, iterations: int = 100,
                                   loss: str = "l1", axis: str = "points", **kw):
@@ -160,6 +164,8 @@ def point_sharded_multiscale_gicp(mesh: Mesh, src_pyr, tgt_pyr, T_init, *,
     return result
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "mesh", "n_scales", "iterations", "loss", "scale_capacities"))
 def sharded_mgicp_2d(mesh: Mesh, source, target, T_init, *,
                      n_scales: int = 5, iterations: int = 100,
                      loss: str = "l1", scale_capacities=None):

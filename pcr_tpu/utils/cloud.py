@@ -90,7 +90,7 @@ def from_numpy(points: np.ndarray, capacity: int | None = None,
 def load_cloud(path: str, capacity: int | None = None) -> Cloud:
     """Read a PCD file into a padded Cloud (replaces o3d.io.read_point_cloud).
 
-    Uses the C++ reader (pcreg.native) when the toolchain is available;
+    Uses the C++ reader (pcr_tpu.native) when the toolchain is available;
     falls back to the pure-Python parser otherwise."""
     from .. import native
 
@@ -124,7 +124,7 @@ def available_indices(dataset: str) -> list[int]:
 def load_dataset(dataset: str, indices=None, capacity: int | None = None) -> list[Cloud]:
     """Load reference dataset scans padded to the dataset bucket size.
 
-    The hot path is the native threaded batch loader (pcreg/native/
+    The hot path is the native threaded batch loader (pcr_tpu/native/
     pcd_io.cc): all scans are parsed in a C++ thread pool straight into the
     padded bucket layout, overlapping file I/O across cores.
 

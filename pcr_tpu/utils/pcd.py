@@ -5,7 +5,7 @@ Replacement for ``o3d.io.read_point_cloud`` as used at
 subset of the format the reference datasets use — FIELDS x y z [rgb],
 TYPE F, SIZE 4, DATA ascii | binary.
 
-A faster C++ reader can back this via ``pcreg.native``; this module is the
+A faster C++ reader can back this via ``pcr_tpu.native``; this module is the
 portable fallback and the format authority for tests.
 """
 

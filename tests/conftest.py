@@ -17,7 +17,7 @@ if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
 os.environ.setdefault("JAX_ENABLE_X64", "0")
 # XLA compiles dominate test time; cache compiled executables across pytest
-# runs (pcreg/__init__.py places the cache in the checkout unless
+# runs (pcr_tpu/__init__.py places the cache in the checkout unless
 # JAX_COMPILATION_CACHE_DIR says otherwise).
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 

@@ -22,7 +22,7 @@ def main() -> int:
     # mesh imports lazily (parallel/__init__ is PEP-562): nothing touches the
     # XLA backend before jax.distributed.initialize runs inside
     # maybe_initialize_distributed — the ordering jax requires.
-    from pcreg.parallel import mesh as mesh_mod
+    from pcr_tpu.parallel import mesh as mesh_mod
 
     assert mesh_mod.maybe_initialize_distributed(), "expected multi-process"
     assert jax.process_count() == 2, jax.process_count()
@@ -33,9 +33,9 @@ def main() -> int:
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
 
-    from pcreg.ops import normals as normals_ops
-    from pcreg.parallel import pair_sharding
-    from pcreg.utils import cloud
+    from pcr_tpu.ops import normals as normals_ops
+    from pcr_tpu.parallel import pair_sharding
+    from pcr_tpu.utils import cloud
 
     # Identical seeded data in both processes (replicated host input).
     rng = np.random.default_rng(0)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pcreg.ops import band_nn, knn
-from pcreg.utils import cloud, se3
+from pcr_tpu.ops import band_nn, knn
+from pcr_tpu.utils import cloud, se3
 
 
 def test_band_matches_exact(rng):

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 
 import chip_smoke
-from pcreg.models import gicp
-from pcreg.ops import knn
-from pcreg.ops import normals as normals_ops
-from pcreg.utils import cloud, se3
+from pcr_tpu.models import gicp
+from pcr_tpu.ops import knn
+from pcr_tpu.ops import normals as normals_ops
+from pcr_tpu.utils import cloud, se3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,6 +65,49 @@ def test_pose_errors_reads_translation_and_angle():
     np.testing.assert_allclose(dr, [0.0, 2.0], atol=1e-4)
 
 
+def _perturbed(rel, dt_m, seed):
+    """rel with each translation moved by dt_m in a random direction and
+    each rotation by about dt_m/10 rad."""
+    r = np.random.default_rng(seed)
+    out = rel.copy()
+    for T in out:
+        d = r.normal(size=3)
+        T[:3, 3] += dt_m * d / np.linalg.norm(d)
+        T[:3, :3] = T[:3, :3] @ np.asarray(
+            se3.so3_exp(jnp.asarray(r.normal(size=3) * dt_m / 10, jnp.float32)))
+    return out
+
+
+@pytest.mark.parametrize("stage2, passes", [
+    ("refined", True),      # stage 2 at ~1 mm, as on the card
+    ("unchanged", False),   # GICP returned its FGR init
+    ("drifted", False),     # stage 2 within the old 0.05 m median bound
+], ids=["refined", "unchanged", "drifted"])
+def test_stage2_gate(tmp_path, stage2, passes):
+    """The smoke's stage-2 gate fails a stage 2 that left its stage-1 poses
+    (~46 mm off, as FGR lands on the card) where they were."""
+    from pcr_tpu.utils import poses_io
+
+    _, poses = chip_smoke.generate(2, n_scans=chip_smoke.N_SCANS, n_azimuth=8)
+    rel = chip_smoke.relative_ground_truth(poses)
+    fgr = _perturbed(rel, 0.046, 0)
+    est = {"refined": _perturbed(rel, 0.001, 1), "unchanged": fgr,
+           "drifted": _perturbed(rel, 0.03, 2)}[stage2]
+    for stage, T in (("FGR", fgr), ("FGR_GICP", est)):
+        poses_io.save_relative_circuit(
+            str(tmp_path / f"relative_poses_{stage}" / "NCLT"), T)
+    if passes:
+        chip_smoke._stage2_check("t", str(tmp_path), rel)
+    else:
+        with pytest.raises(chip_smoke.CheckFailed):
+            chip_smoke._stage2_check("t", str(tmp_path), rel)
+
+
+def test_only_needs_four_chips():
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--only", "points"])
+
+
 def test_smoke_refuses_a_cpu_device():
     """No CPU fallback: a run where JAX finds only the CPU exits non-zero
     and prints no result line."""
@@ -91,7 +134,7 @@ def test_compile_cache_placement(tmp_path, env_set):
         env["JAX_COMPILATION_CACHE_DIR"] = want
     p = subprocess.run(
         [sys.executable, "-c",
-         "import pcreg, jax; print(jax.config.jax_compilation_cache_dir)"],
+         "import pcr_tpu, jax; print(jax.config.jax_compilation_cache_dir)"],
         env=env, cwd=str(tmp_path), capture_output=True, text=True,
         timeout=300, check=True)
     assert p.stdout.strip().splitlines()[-1] == want

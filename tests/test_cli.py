@@ -1,4 +1,4 @@
-"""CLI runner (python -m pcreg) — the L3 entry-point surface."""
+"""CLI runner (python -m pcr_tpu) — the L3 entry-point surface."""
 
 import json
 import os
@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from pcreg import __main__ as cli
-from pcreg.utils import pcd as pcd_io
-from pcreg.utils import poses_io, se3
+from pcr_tpu import __main__ as cli
+from pcr_tpu.utils import pcd as pcd_io
+from pcr_tpu.utils import poses_io, se3
 
 
 @pytest.fixture
@@ -16,7 +16,7 @@ def mini_dataset(tmp_path, monkeypatch, rng):
     """A synthetic 4-scan 'Facade' circuit written as real PCD files under a
     temporary reference root — exercises the FULL CLI surface (load -> FGR ->
     M-GICP -> global refinement) at CI-affordable size."""
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.utils import cloud as cloud_mod
     from tests.test_pipeline import _bumpy_clouds
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=4, n=1500, cap=2048)

@@ -69,9 +69,9 @@ def test_two_process_sharded_gicp(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from pcreg.ops import normals as normals_ops
-    from pcreg.parallel import pair_sharding
-    from pcreg.utils import cloud
+    from pcr_tpu.ops import normals as normals_ops
+    from pcr_tpu.parallel import pair_sharding
+    from pcr_tpu.utils import cloud
 
     rng = np.random.default_rng(0)
     srcs, tgts = [], []

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from pcreg import viz
-from pcreg.models import features, manual
-from pcreg.utils import cloud, se3
+from pcr_tpu import viz
+from pcr_tpu.models import features, manual
+from pcr_tpu.utils import cloud, se3
 from tests.conftest import random_rotation
 
 
@@ -106,8 +106,8 @@ def test_flatten_to_xy(rng):
 
 def test_animation_exports(tmp_path, rng):
     """P16 animation parity: pose-interpolated frame sequences (PLY + GIF)."""
-    from pcreg import viz
-    from pcreg.utils import cloud as cloud_mod, se3
+    from pcr_tpu import viz
+    from pcr_tpu.utils import cloud as cloud_mod, se3
     import jax.numpy as jnp
 
     pts = rng.uniform(-1, 1, size=(300, 3)).astype(np.float32)
@@ -136,8 +136,8 @@ def test_animation_exports(tmp_path, rng):
 def test_viz_p17_parity(tmp_path, rng):
     """Round-2 P17/N13 additions: NN-distance boxplot, grouped RMSE bars,
     RMSE-vs-iteration curves, correspondence-line export."""
-    from pcreg import viz
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu import viz
+    from pcr_tpu.utils import cloud as cloud_mod
 
     c1 = cloud_mod.from_numpy(rng.normal(size=(60, 3)).astype(np.float32), capacity=64)
     c2 = cloud_mod.from_numpy(
@@ -171,9 +171,9 @@ def test_gicp_loss_log(rng):
     non-increasing to convergence on a perturbed self-registration."""
     import jax.numpy as jnp
 
-    from pcreg.models import gicp
-    from pcreg.ops import normals as nops
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.models import gicp
+    from pcr_tpu.ops import normals as nops
+    from pcr_tpu.utils import cloud as cloud_mod
 
     pts = rng.normal(size=(400, 3)).astype(np.float32)
     c = cloud_mod.from_numpy(pts, capacity=512)

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pcreg.models import fgr
-from pcreg.utils import cloud, poses_io, se3
+from pcr_tpu.models import fgr
+from pcr_tpu.utils import cloud, poses_io, se3
 from tests.conftest import random_rotation
 
 HAVE_REF = os.path.isdir(os.path.join(poses_io.REFERENCE_ROOT, "nuvens"))

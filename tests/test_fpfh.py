@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pcreg.ops import fpfh as fpfh_mod
-from pcreg.utils import cloud
+from pcr_tpu.ops import fpfh as fpfh_mod
+from pcr_tpu.utils import cloud
 
 
 def np_pair_features(p, np_, q, nq_):

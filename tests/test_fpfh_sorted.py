@@ -4,8 +4,8 @@ oracle and the selection-path implementations."""
 import numpy as np
 import jax.numpy as jnp
 
-from pcreg.ops import fpfh_sorted
-from pcreg.utils import cloud
+from pcr_tpu.ops import fpfh_sorted
+from pcr_tpu.utils import cloud
 from tests.test_fpfh import np_fpfh
 
 
@@ -33,7 +33,7 @@ def test_banded_fpfh_matches_oracle(rng):
 def test_banded_normals_match_selection_path(rng):
     """The banded moments normals must agree with the selection-path hybrid
     normals (same Hybrid(2v, 20) semantics, same nz >= 0 sign convention)."""
-    from pcreg.models import fgr as fgr_mod
+    from pcr_tpu.models import fgr as fgr_mod
 
     pts = rng.uniform(-2, 2, size=(800, 3)).astype(np.float32)
     pts[:, 2] = 0.1 * np.sin(pts[:, 0] * 2) + 0.05 * pts[:, 1]
@@ -82,10 +82,10 @@ def test_banded_downstream_fgr_recovers_pose(rng):
     """End-to-end: FGR with banded features recovers a known pose on
     overlapping synthetic scans (the downstream validation path the module
     docstring promises)."""
-    from pcreg.models import fgr as fgr_mod
-    from pcreg.utils import se3
+    from pcr_tpu.models import fgr as fgr_mod
+    from pcr_tpu.utils import se3
     from tests.test_pipeline import _bumpy_clouds
-    from pcreg import pipeline as pl
+    from pcr_tpu import pipeline as pl
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=2, n=900, cap=1024, step=0.3)
     feats = [fpfh_sorted.fgr_features_sorted(c, 0.2, q_tile=256, band=512)

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pcreg.models import evaluate, gicp, multiscale
-from pcreg.ops import normals as normals_ops
-from pcreg.utils import cloud, poses_io, se3
+from pcr_tpu.models import evaluate, gicp, multiscale
+from pcr_tpu.ops import normals as normals_ops
+from pcr_tpu.utils import cloud, poses_io, se3
 
 HAVE_REF = os.path.isdir(os.path.join(poses_io.REFERENCE_ROOT, "nuvens"))
 

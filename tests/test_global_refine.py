@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pcreg.models.global_refine import closed_form, pose_graph
-from pcreg.utils import poses_io, quaternion as quat, se3
+from pcr_tpu.models.global_refine import closed_form, pose_graph
+from pcr_tpu.utils import poses_io, quaternion as quat, se3
 from tests.conftest import random_rotation
 
 
@@ -309,7 +309,7 @@ HAVE_REF2 = __import__("os").path.isdir(
 def test_stage3_closed_forms_beat_raw_chain_nclt():
     """NCLT FGR_GICP fixtures: the raw chain dumps its whole 40.82 m closure
     on the wraparound edge; LUM/SLERP+LUM must spread it to centimeters."""
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     rel = np.asarray(poses_io.load_reference_relative("FGR_GICP", "NCLT"))
     raw = eval_mod.circuit_edge_consistency(se3.relative_to_absolute(rel), rel)
@@ -333,7 +333,7 @@ def test_stage3_pose_graph_beats_raw_chain_facade():
     """Facade FGR_GICP fixtures (closure 0.101 m — small enough that the line
     process keeps the loop edge): pose-graph LM must distribute it and prune
     nothing."""
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     rel = np.asarray(poses_io.load_reference_relative("FGR_GICP", "Facade"))
     n = len(rel)
@@ -373,7 +373,7 @@ def test_stage3_pose_graph_distributes_nclt_closure():
     and its consistency score both live in standard SE(3) — each trajectory
     is scored in its native convention (see circuit_edge_consistency).
     """
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     rel = np.asarray(poses_io.load_reference_relative("FGR_GICP", "NCLT"))
     n = len(rel)
@@ -424,7 +424,7 @@ def test_stage3_pose_graph_prune_recovers_chain_at_n901():
     the pass-1 distorted init).  The fixed path re-seeds pass 2 with the
     exact chain solution when pruning leaves a pure odometry circuit.
     """
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     rel = np.asarray(poses_io.load_reference_relative("FGR_GICP", "NCLT"))
     n = len(rel)
@@ -500,7 +500,7 @@ def test_refine_slerp_matches_reference_transcription(rng):
     # the closure-edge translation residual is identical by construction —
     # i.e. whatever the closure does (incl. growing, as on NCLT) is the
     # reference algorithm's own behavior
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     c_ours = eval_mod.circuit_edge_consistency(ours, T_rel)
     c_ref = eval_mod.circuit_edge_consistency(ref, T_rel)
@@ -511,7 +511,7 @@ def test_refine_slerp_matches_reference_transcription(rng):
 def test_circuit_edge_consistency_rejects_unknown_convention(rng):
     """A typo like 'std' must raise, not silently score against the
     reference recovery (ADVICE r4)."""
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     rel = make_circuit(rng, 5)
     A = np.asarray(se3.relative_to_absolute(rel))
@@ -523,7 +523,7 @@ def test_aligned_ate_gauge_invariance(rng):
     """SE(3)-Umeyama-aligned ATE is invariant to a global rigid transform of
     the estimated trajectory (the gauge the raw per-pose ATE is sensitive to),
     and zero for a trajectory equal to its target up to that gauge."""
-    from pcreg.models import evaluate as eval_mod
+    from pcr_tpu.models import evaluate as eval_mod
 
     n = 40
     target = np.stack([np.eye(4)] * n)

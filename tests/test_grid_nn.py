@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pcreg.ops import grid_nn, knn
-from pcreg.utils import cloud
+from pcr_tpu.ops import grid_nn, knn
+from pcr_tpu.utils import cloud
 
 
 def test_grid_nn1_matches_exact(rng):

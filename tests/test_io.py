@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from pcreg.utils import cloud, pcd, poses_io, se3
+from pcr_tpu.utils import cloud, pcd, poses_io, se3
 
 import jax.numpy as jnp
 
@@ -113,7 +113,7 @@ def test_lazy_clouds_streaming():
     import numpy as np
     import jax.numpy as jnp
 
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     lz = cloud_mod.load_dataset_lazy("Facade", indices=[0, 1, 2], keep=2)
     assert len(lz) == 3
@@ -137,7 +137,7 @@ def test_lazy_clouds_non_prefix_mask_falls_back():
     import numpy as np
     import jax.numpy as jnp
 
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     pts = np.arange(30, dtype=np.float32).reshape(10, 3)
     mask = np.ones(10, bool)

@@ -1,4 +1,4 @@
-"""Native C++ PCD reader (pcreg/native) vs the Python format authority.
+"""Native C++ PCD reader (pcr_tpu/native) vs the Python format authority.
 
 The Python parser in utils/pcd.py defines the format semantics; the native
 reader must agree bit-for-bit on binary scans (with and without rgb) and on
@@ -8,8 +8,8 @@ ascii files, all produced by write_pcd.
 import numpy as np
 import pytest
 
-from pcreg import native
-from pcreg.utils import cloud, pcd
+from pcr_tpu import native
+from pcr_tpu.utils import cloud, pcd
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"

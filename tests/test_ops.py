@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pcreg.ops import eigen3, knn, normals, outlier, voxel
-from pcreg.utils import cloud
+from pcr_tpu.ops import eigen3, knn, normals, outlier, voxel
+from pcr_tpu.utils import cloud
 
 
 def make_points(rng, n, cap=None, scale=10.0):

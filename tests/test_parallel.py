@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pcreg.models import gicp
-from pcreg.models.global_refine import pose_graph
-from pcreg.ops import normals as normals_ops
-from pcreg.parallel import distributed_pg, mesh as mesh_mod, pair_sharding
-from pcreg.utils import cloud, se3
+from pcr_tpu.models import gicp
+from pcr_tpu.models.global_refine import pose_graph
+from pcr_tpu.ops import normals as normals_ops
+from pcr_tpu.parallel import distributed_pg, mesh as mesh_mod, pair_sharding
+from pcr_tpu.utils import cloud, se3
 from tests.test_global_refine import make_pose_graph
 
 pytestmark = pytest.mark.skipif(
@@ -80,8 +80,8 @@ def test_distributed_global_optimization_closes_loop(rng):
 def test_sharded_nn1_matches_single(rng):
     """Point sharding: ref rows split over the 'points' axis; result must be
     bit-identical to the single-device exact merge."""
-    from pcreg.ops import knn as knn_ops
-    from pcreg.parallel import point_sharding
+    from pcr_tpu.ops import knn as knn_ops
+    from pcr_tpu.parallel import point_sharding
 
     q = rng.uniform(-5, 5, size=(2048, 3)).astype(np.float32)
     r = rng.uniform(-5, 5, size=(4096, 3)).astype(np.float32)
@@ -97,8 +97,8 @@ def test_sharded_nn1_matches_single(rng):
 
 
 def test_sharded_knn_matches_single(rng):
-    from pcreg.ops import knn as knn_ops
-    from pcreg.parallel import point_sharding
+    from pcr_tpu.ops import knn as knn_ops
+    from pcr_tpu.parallel import point_sharding
 
     q = rng.uniform(-5, 5, size=(512, 3)).astype(np.float32)
     r = rng.uniform(-5, 5, size=(2048, 3)).astype(np.float32)
@@ -117,7 +117,7 @@ def test_sharded_knn_matches_single(rng):
 def _fgr_pair_batch(rng, B=8, n=400, cap=512, voxel=0.2):
     """B synthetic FGR-ready pairs: per-scan features from fgr_features, the
     stage-1 preprocessing (normals + FPFH)."""
-    from pcreg.models import fgr as fgr_mod
+    from pcr_tpu.models import fgr as fgr_mod
 
     srcs, tgts, fss, fts = [], [], [], []
     for b in range(B):
@@ -137,7 +137,7 @@ def _fgr_pair_batch(rng, B=8, n=400, cap=512, voxel=0.2):
 def test_sharded_fgr_matches_batched(rng):
     """Stage-1 pair parallelism (SURVEY §2.4): shard_map over 'pairs' must
     reproduce the single-device vmapped FGR."""
-    from pcreg.models import fgr as fgr_mod
+    from pcr_tpu.models import fgr as fgr_mod
 
     src, tgt, fs, ft = _fgr_pair_batch(rng, B=8)
     opts = fgr_mod.FgrOptions(
@@ -157,9 +157,9 @@ def test_sharded_fgr_matches_batched(rng):
 
 
 def test_sharded_fgr_features_matches_batched(rng):
-    from pcreg.models import fgr as fgr_mod
+    from pcr_tpu.models import fgr as fgr_mod
 
-    from pcreg.ops import fpfh_sorted
+    from pcr_tpu.ops import fpfh_sorted
 
     pts = [rng.uniform(-3, 3, size=(300, 3)).astype(np.float32) for _ in range(8)]
     stacked = cloud.stack_clouds([cloud.from_numpy(p, capacity=512) for p in pts])
@@ -183,7 +183,7 @@ def test_sharded_fgr_features_matches_batched(rng):
 def test_point_sharded_gicp_matches_single(rng):
     """VERDICT r2 item 2: the point-sharding CONSUMER — a full GICP loop with
     source rows sharded over 'points' must match single-device registration."""
-    from pcreg.parallel import point_sharding
+    from pcr_tpu.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=1, n=900, cap=1024)
     src1 = jax.tree.map(lambda x: x[0], src)
@@ -202,8 +202,8 @@ def test_point_sharded_gicp_matches_single(rng):
 
 
 def test_point_sharded_multiscale_matches_single(rng):
-    from pcreg.models import multiscale as ms_mod
-    from pcreg.parallel import point_sharding
+    from pcr_tpu.models import multiscale as ms_mod
+    from pcr_tpu.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=1, n=900, cap=1024)
     src1 = jax.tree.map(lambda x: x[0], src)
@@ -226,7 +226,7 @@ def test_sharded_gicp_2d_matches_batched(rng):
     (2 pairs x 4 points) mesh — pair batch on 'pairs', source rows on
     'points' with per-iteration psum of the normal equations — must match
     the single-device batched result."""
-    from pcreg.parallel import point_sharding
+    from pcr_tpu.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=2, n=900, cap=1024)
     m2 = mesh_mod.make_2d_mesh(2, 4)
@@ -248,7 +248,7 @@ def test_sharded_mgicp_2d_matches_batched(rng):
     — per-pair preprocessing sharded over 'pairs', every scale's solve with
     source rows split over 'points' — must match the single-device
     batched_mgicp used by the streamed stage-2 runner."""
-    from pcreg.parallel import point_sharding
+    from pcr_tpu.parallel import point_sharding
 
     src, tgt, T0, T_gt = make_pair_batch(rng, B=2, n=900, cap=1024)
     # raw clouds (no precomputed normals): both paths preprocess per scale
@@ -267,3 +267,53 @@ def test_sharded_mgicp_2d_matches_batched(rng):
     for b in range(2):
         _, dt = se3.pose_errors(np.asarray(res_2d.transformation)[b], T_gt[b])
         assert float(dt) < 0.02
+
+
+def test_sharded_mgicp_matches_batched_and_compiles_once(rng):
+    """The pairs-mesh stage-2 entry (CLI --devices) matches the
+    single-device batched pyramid, and a second chunk of the same shape
+    reuses the first chunk's program: the entry is jitted with the mesh
+    static (an eager shard_map compiled every primitive, per chunk)."""
+    src, tgt, T0, T_gt = make_pair_batch(rng, B=4, n=900, cap=1024)
+    src = src.with_(normals=None, covariances=None)
+    tgt = tgt.with_(normals=None, covariances=None)
+    kw = dict(n_scales=2, iterations=8, scale_capacities=(256, 1024))
+    m = mesh_mod.make_pair_mesh(4)
+    res_b = pair_sharding.batched_mgicp(src, tgt, jnp.asarray(T0), **kw)
+    before = pair_sharding.sharded_mgicp._cache_size()
+    res_s = pair_sharding.sharded_mgicp(m, src, tgt, jnp.asarray(T0), **kw)
+    np.testing.assert_allclose(
+        np.asarray(res_s.transformation), np.asarray(res_b.transformation),
+        atol=5e-4)
+    for b in range(4):
+        _, dt = se3.pose_errors(np.asarray(res_s.transformation)[b], T_gt[b])
+        assert float(dt) < 0.02
+    pair_sharding.sharded_mgicp(m, tgt, src, jnp.asarray(T0), **kw)
+    assert pair_sharding.sharded_mgicp._cache_size() == before + 1
+
+
+@pytest.mark.parametrize("env, want", [
+    ({"JAX_COORDINATOR_ADDRESS": "localhost:7777"},
+     {"coordinator_address": "localhost:7777"}),
+    ({"JAX_COORDINATOR_ADDRESS": "localhost:7777", "JAX_NUM_PROCESSES": "2",
+      "JAX_PROCESS_ID": "1"},
+     {"coordinator_address": "localhost:7777", "num_processes": 2,
+      "process_id": 1}),
+    ({"PCR_MULTIHOST": "1"}, {}),
+    ({}, None),
+], ids=["coordinator-only", "explicit", "auto-detect", "single-host"])
+def test_maybe_initialize_distributed(monkeypatch, env, want):
+    """jax.distributed.initialize gets what the environment gives and lets
+    JAX infer the rest; PCR_MULTIHOST=1 calls it with no arguments (cluster
+    auto-detection); with neither, nothing is initialized."""
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    monkeypatch.setattr(mesh_mod, "_distributed_initialized", False)
+    for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID", "PCR_MULTIHOST"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert mesh_mod.maybe_initialize_distributed() is False
+    assert calls == ([] if want is None else [want])

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from pcreg import pipeline
-from pcreg.utils import poses_io, se3
+from pcr_tpu import pipeline
+from pcr_tpu.utils import poses_io, se3
 
 HAVE_REF = os.path.isdir(os.path.join(poses_io.REFERENCE_ROOT, "nuvens"))
 
@@ -56,8 +56,8 @@ def _bumpy_clouds(rng, n_clouds=4, n=1500, cap=2048, step=0.4):
     (each scan views the same surface from a shifted/rotated frame).
     ``n`` may be a per-scan list for heterogeneous point counts (exercises
     the per-cloud capacity bucketing paths)."""
-    from pcreg.utils import cloud as cloud_mod
-    from pcreg.utils.se3 import so3_exp
+    from pcr_tpu.utils import cloud as cloud_mod
+    from pcr_tpu.utils.se3 import so3_exp
     import jax.numpy as jnp
 
     ns = n if isinstance(n, (list, tuple)) else [n] * n_clouds
@@ -83,7 +83,7 @@ def _bumpy_clouds(rng, n_clouds=4, n=1500, cap=2048, step=0.4):
 def test_coarse_to_fine(rng):
     """P5: FGR -> doubling M-GICP -> info matrix recovers a known pose on
     real-istic overlapping scans (reduced budget for CI)."""
-    from pcreg.models import graph_builder
+    from pcr_tpu.models import graph_builder
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=2)
     res, info, gate_fit = graph_builder.coarse_to_fine(
@@ -103,8 +103,8 @@ def test_coarse_to_fine(rng):
 def test_full_registration_k2(rng):
     """P6: k-connectivity graph builder on 4 overlapping scans; the optimized
     graph must land every node near its ground-truth pose."""
-    from pcreg.models import graph_builder
-    from pcreg.models.global_refine import pose_graph as pg
+    from pcr_tpu.models import graph_builder
+    from pcr_tpu.models.global_refine import pose_graph as pg
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=4)
     graph = graph_builder.full_registration(
@@ -125,10 +125,10 @@ def test_full_registration_k2(rng):
 def test_full_registration_facade_k2(tmp_path):
     """P6 on real data: k=2 graph over 4 Facade scans at subsampled capacity
     (VERDICT r1 item 4/5 — full_registration had never touched real data)."""
-    from pcreg.models import graph_builder
-    from pcreg.models.global_refine import pose_graph as pg
-    from pcreg.ops import voxel as voxel_ops
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.models import graph_builder
+    from pcr_tpu.models.global_refine import pose_graph as pg
+    from pcr_tpu.ops import voxel as voxel_ops
+    from pcr_tpu.utils import cloud as cloud_mod
 
     raw = cloud_mod.load_dataset("Facade", indices=[0, 1, 2, 3])
     clouds = [
@@ -159,7 +159,7 @@ def test_nclt_arc_stages12(tmp_path):
         dataset="NCLT", output_root=str(tmp_path), batch_size=1,
         mgicp_iterations=50,
     )
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     clouds = cloud_mod.load_dataset("NCLT", indices=range(n))
     rel1 = pipeline.run_stage1_fgr(cfg, clouds=clouds, n=n)
@@ -262,9 +262,9 @@ def test_courtyard_fgr_240k(tmp_path):
     must land near the composed FGR fixture chain pose_3_2 @ pose_4_3
     (reference: 1_...py:41-66 at Courtyard scale).  First run compiles the
     245k kernels (minutes; persisted to the compile cache — reruns are
-    compile-free since pcreg enables jax_compilation_cache_dir)."""
-    from pcreg.models import fgr as fgr_mod
-    from pcreg.utils import cloud as cloud_mod
+    compile-free since pcr_tpu enables jax_compilation_cache_dir)."""
+    from pcr_tpu.models import fgr as fgr_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     cfg = pipeline.PipelineConfig(dataset="Courtyard", output_root=str(tmp_path))
     clouds = cloud_mod.load_dataset("Courtyard", indices=[4, 2])
@@ -318,7 +318,7 @@ def test_stage1_sharded_matches_batched(rng, tmp_path):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
-    from pcreg.parallel import mesh as mesh_mod
+    from pcr_tpu.parallel import mesh as mesh_mod
 
     clouds, _ = _bumpy_clouds(rng, n_clouds=4, n=800, cap=1024, step=0.3)
     cfg_b = pipeline.PipelineConfig(dataset="Facade", voxel_size=0.2,
@@ -398,8 +398,8 @@ def test_nclt_arc_stage2_mesh_matches_streamed(tmp_path):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
-    from pcreg.parallel import mesh as mesh_mod
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.parallel import mesh as mesh_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     n = 12
     clouds = cloud_mod.load_dataset("NCLT", indices=range(n))
@@ -446,7 +446,7 @@ def test_full_registration_batched_matches_serial(rng):
     """VERDICT r3 item 6: the chunked/vmapped k-connectivity builder must
     produce the same graph as the serial pair loop (same per-cloud features,
     same per-pair seeds, same gate + serial-ladder fallback)."""
-    from pcreg.models import graph_builder
+    from pcr_tpu.models import graph_builder
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=4)
     ser = graph_builder.full_registration(
@@ -474,9 +474,9 @@ def test_full_registration_facade_k2_batched(tmp_path):
     both is recorded in the test output."""
     import time
 
-    from pcreg.models import graph_builder
-    from pcreg.ops import voxel as voxel_ops
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.models import graph_builder
+    from pcr_tpu.ops import voxel as voxel_ops
+    from pcr_tpu.utils import cloud as cloud_mod
 
     raw = cloud_mod.load_dataset("Facade", indices=[0, 1, 2, 3])
     clouds = [
@@ -506,7 +506,7 @@ def test_flag_stage1_outliers_marks_bad_pair():
     flagged in the metrics log before stage 2 can hide it (VERDICT r4 #7)."""
     import numpy as np
 
-    from pcreg import pipeline
+    from pcr_tpu import pipeline
 
     n = 30
     rng = np.random.default_rng(3)
@@ -575,9 +575,9 @@ def test_nclt_arc_stage2_mesh_matches_streamed_bounded(tmp_path):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
-    from pcreg.ops import voxel as voxel_ops
-    from pcreg.parallel import mesh as mesh_mod
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.ops import voxel as voxel_ops
+    from pcr_tpu.parallel import mesh as mesh_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     n = 8
     raw = cloud_mod.load_dataset("NCLT", indices=range(n))
@@ -610,7 +610,7 @@ def test_run_full_lazyclouds_prefetch(rng, tmp_path, monkeypatch):
     """run_full's LazyClouds branch (sliding-window device cache + next-scan
     prefetch): same poses as the list-backed run, and the device cache stays
     bounded by ``keep``."""
-    from pcreg.utils import cloud as cloud_mod
+    from pcr_tpu.utils import cloud as cloud_mod
 
     clouds, gt = _bumpy_clouds(rng, n_clouds=4, n=800, cap=1024, step=0.3)
     host = [cloud_mod.Cloud(

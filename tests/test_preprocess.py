@@ -9,8 +9,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pcreg.ops import normals, outlier, preprocess, voxel
-from pcreg.utils import cloud
+from pcr_tpu.ops import normals, outlier, preprocess, voxel
+from pcr_tpu.utils import cloud
 
 
 def make_surface(rng, n=4000, cap=4096):

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from pcreg.utils import quaternion as quat
-from pcreg.utils import se3
+from pcr_tpu.utils import quaternion as quat
+from pcr_tpu.utils import se3
 from tests.conftest import random_rotation
 
 
